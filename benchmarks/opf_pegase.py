@@ -1,19 +1,17 @@
-"""case1354pegase AC OPF on the chip: the f64 SQD LDL^T endgame proof.
+"""case1354pegase AC OPF on the GPU, with the f64 endgame solve timed alone.
 
-Round-4 finding: the f32 MXU factorization's backward error walls the
-interior-point endgame at pegase scale (dual residual stuck 5.4e-2, KKT
-3.7e-3, status "failed" under the 1e-6 acceptable bar). The f64 blocked
-LDL^T switch (ops/linalg.py ldlt_f64) is fault-injection tested on CPU;
-this run validates it under real conditions — the reference's bar is a
-converged Ipopt solve (acOptimalPowerFlow.jl:333, analysis.jl:9-12).
+The f32 factorization's backward error walls the interior-point endgame at
+pegase scale; the IPM then switches to the full-f64 LU
+(ops/linalg.py solve_f64_sqd). The reference's bar is a converged Ipopt
+solve (acOptimalPowerFlow.jl:333, analysis.jl:9-12).
 
-Phase 1 times one ldlt_f64 factorize+solve at the actual KKT size on the
-device (the emulated-f64 throughput question) so a pathological rate
-aborts before the 30-min solve. Phase 2 runs the full OPF with
-verbose=2 so the endgame switch and per-iteration walls land in the log.
+Phase 1 times one f64 LU factorize+solve at the actual KKT size on the
+device, so a pathological rate aborts before the full solve. Phase 2 runs
+the full OPF with verbose=2 so the endgame switch and per-iteration walls
+land in the log.
 
 Usage: python benchmarks/opf_pegase.py [--cpu] [--max-seconds 1500]
-       [--skip-probe] [--capture /tmp/pegase_iterate.npz]
+       [--skip-probe] [--capture <file>.npz]
 """
 
 import argparse
@@ -55,7 +53,7 @@ def main():
     out = {"device": str(jax.devices()[0])}
     print(json.dumps({"phase": "init", **out}), flush=True)
 
-    data = os.path.join(ROOT, "tests", "data", "case1354pegase.h5")
+    data = os.path.join(ROOT, "tests", "data", "case1354pegase.npz")
     system = jg.power_system(data)
     analysis = ac_optimal_power_flow(system)
     analysis._refresh_spec()
@@ -65,7 +63,7 @@ def main():
                m_i=spec.m_i, n_aug=n_aug)
 
     if not args.skip_probe:
-        # Phase 1: emulated-f64 LDL^T throughput at the real KKT size
+        # Phase 1: f64 LU throughput at the real KKT size
         rng = np.random.default_rng(0)
         h = rng.standard_normal((n_aug, n_aug)) / np.sqrt(n_aug)
         a = h @ h.T + np.eye(n_aug)
@@ -84,13 +82,13 @@ def main():
         x.block_until_ready()
         warm = time.perf_counter() - t0
         flops = 2.0 * n_aug ** 3 / 3.0
-        out["ldlt_probe"] = {
+        out["f64_lu_probe"] = {
             "n": n_aug, "compile_plus_first_s": round(compile_and_first, 1),
             "warm_s": round(warm, 2),
             "effective_f64_tflops": round(flops / warm / 1e12, 3)}
         print(json.dumps({"phase": "probe", **out}), flush=True)
         if warm > args.probe_abort_s:
-            out["aborted"] = f"ldlt warm {warm:.0f}s > {args.probe_abort_s}s"
+            out["aborted"] = f"f64 LU warm {warm:.0f}s > {args.probe_abort_s}s"
             print(json.dumps({"phase": "final", **out}), flush=True)
             return
 

@@ -3,11 +3,11 @@
 The reference solves pegase-class OPF NLPs through Ipopt's sparse MA27
 factorization (acOptimalPowerFlow.jl:333) and ships datasets to
 ACTIVSg25k/70k (docs/src/examples/powerSystemDatasets.md:5-18). The
-repo's dense IPM KKT holds to ~3k buses; this proof runs the structured
+repo's dense IPM KKT is used below ~4k buses; this proof runs the structured
 BBD KKT (opf/kkt_bbd.py) on a synthetic lattice with quadratic costs and
 voltage bounds (utils/synthetic.py opf=True) at 10k-class size.
 
-Prints one JSON document per phase; paste results into BENCH_NOTES.md.
+Prints one JSON document per phase.
 
 Usage:  python benchmarks/opf_scale.py [--cpu] [--rows 100] [--cols 100]
         [--blocks 0=auto] [--max-seconds 1500] [--tol 1e-6]

@@ -1,7 +1,7 @@
 """ACTIVSg10k on the JAX/BBD solve path — the capability-envelope proof.
 
 Runs the full 10,000-bus case end-to-end on whatever device JAX offers
-(the TPU chip under the driver; CPU when pinned):
+(the GPU; the CPU with --cpu):
 
   1. Newton-Raphson power flow on the BBD/Schur substrate (k blocks),
   2. Gauss-Newton WLS state estimation on the SE-BBD substrate from a
@@ -11,7 +11,7 @@ Runs the full 10,000-bus case end-to-end on whatever device JAX offers
   3. the dense->BBD crossover table (dense SE vs BBD SE wall time at
      118 / 1354 / 1951 buses, BBD-only at 10k where dense cannot run).
 
-Prints one JSON document; paste the table into BENCH_NOTES.md.
+Prints one JSON document.
 
 Usage:  python benchmarks/scale_10k.py [--cpu] [--skip-crossover]
 """
@@ -56,7 +56,7 @@ def run_10k(n_blocks=16):
                                                     power_flow_bbd)
 
     out = {}
-    system = jg.power_system(os.path.join(DATA, "case_ACTIVSg10k.h5"))
+    system = jg.power_system(os.path.join(DATA, "case_ACTIVSg10k.npz"))
     out["buses"] = system.bus.number
     out["branches"] = system.branch.number
 
@@ -137,8 +137,8 @@ def crossover():
     from juliagrid_tpu.powerflow.driver import power_flow
 
     rows = []
-    for case, blocks in [("case118.m", 4), ("case1354pegase.h5", 8),
-                         ("case1951rte.h5", 8)]:
+    for case, blocks in [("case118.m", 4), ("case1354pegase.npz", 8),
+                         ("case1951rte.npz", 8)]:
         system = jg.power_system(os.path.join(DATA, case))
         pf = newton_raphson(system)
         power_flow(pf, power=True)

@@ -10,7 +10,7 @@ an EHV backbone (utils/synthetic.py — 24,964 buses, ~49.6k branches),
   2. zero-noise GN WLS SE on the SE-BBD substrate (estimator-reproduces-
      PF invariant at ~125k measurement rows / ~50k states).
 
-Prints one JSON document; paste results into BENCH_NOTES.md.
+Prints one JSON document.
 
 Usage:  python benchmarks/scale_25k.py [--cpu] [--rows 158] [--cols 158]
         [--blocks 32]

@@ -3,13 +3,13 @@
 True weak-scaling efficiency cannot be measured on this host: the 8
 virtual CPU devices share 2 physical cores, so adding "devices" adds no
 compute. What CAN be measured honestly — and is the quantity that bounds
-weak scaling on a real ICI-connected slice — is the **sharding overhead**:
+weak scaling on real interconnected devices — is the **sharding overhead**:
 the wall-time ratio of the d-device scenario-sharded program to the
-single-device batched program over the SAME total work. On real chips,
+single-device batched program over the SAME total work. On real devices,
 weak-scaling efficiency ~= 1 / overhead(d) because the per-device compute
 is embarrassingly parallel and the only collective is the tiny
 convergence reduction (a per-iteration psum of one bool/scalar per
-scenario) riding ICI.
+scenario) across the interconnect.
 
 Also reports the collective footprint of the compiled sharded program
 (bytes per iteration) as direct evidence the communication is negligible.
@@ -111,7 +111,7 @@ def main():
     print(json.dumps({
         "note": ("8 virtual devices share 2 physical cores; "
                  "overhead_vs_batched isolates partition+collective cost, "
-                 "the quantity that bounds weak scaling on real ICI"),
+                 "the quantity that bounds weak scaling on real devices"),
         "total_scenarios": total,
         "batched_1dev_wall_s": round(t_base, 3),
         "batched_converged": conv,

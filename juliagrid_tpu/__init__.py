@@ -1,11 +1,11 @@
-"""juliagrid_tpu — a TPU-native steady-state power-system analysis framework.
+"""juliagrid_tpu — a steady-state power-system analysis framework on JAX.
 
 A ground-up JAX/XLA implementation with the capability surface of JuliaGrid
 (power flow, optimal power flow, state estimation, observability, bad-data
-processing) redesigned for TPU: batched dense-block linear algebra on the
-MXU with mixed-precision iterative refinement, pure jittable solver cores,
-an in-house interior-point optimizer, and scenario/network sharding over
-device meshes.
+processing) redesigned for an accelerator: batched dense-block linear
+algebra with mixed-precision iterative refinement, pure jittable solver
+cores, an in-house interior-point optimizer, and scenario/network sharding
+over device meshes.
 
 Public surface mirrors the reference exports (reference
 /root/reference/src/JuliaGrid.jl:27-109) in snake_case.

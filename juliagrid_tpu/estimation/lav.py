@@ -58,13 +58,13 @@ def ac_lav_state_estimation(monitoring) -> AcStateEstimation:
 def _ac_lav_fns(n: int, m_act: int):
     """AC LAV problem functions for a given (bus count, active rows)
     shape, params-threaded so repeated solves hit solve_nlp's engine
-    cache (the round-4 118-bus LAV paid its full compile/trace budget on
-    EVERY solve because these were per-call closures).
+    cache (per-call closures would pay the full compile/trace budget on
+    EVERY solve).
 
     Analytic derivatives: the LAV equality Jacobian is [H(x), I, -I]
     (+ the slack-anchor row) with H already computed by build_h —
     autodiff over the 2n+2m variables is pure waste, and its eager
-    tangent basis OOM'd the 16 GB chip at 118 buses (bench round 3)."""
+    tangent basis materializes 2n+2m copies of the constraint graph."""
     n_x = 2 * n + 2 * m_act
     rng_m = jnp.arange(m_act)
 

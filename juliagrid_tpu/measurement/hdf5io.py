@@ -5,7 +5,6 @@ layout indices, uint8 booleans."""
 
 from __future__ import annotations
 
-import h5py
 import numpy as np
 
 from ..utils.vec import Vec
@@ -32,6 +31,8 @@ def _labels(ds):
 
 
 def load_measurement(monitoring: Measurement, path: str) -> None:
+    import h5py
+
     with h5py.File(path, "r") as fh:
         def meter(grp, name, count):
             return (
@@ -122,6 +123,8 @@ def _compress(arr):
 def save_measurement(monitoring: Measurement, path: str,
                      reference: str = "", note: str = "") -> None:
     """Reference saveMeasurement (measurement/save.jl:31-168)."""
+    import h5py
+
     with h5py.File(path, "w") as fh:
         if reference:
             fh.attrs["reference"] = np.bytes_(reference.encode())

@@ -9,7 +9,7 @@ numpy re-vectorization (``_finalize``), never a full system re-scan — and
 re-captures the revision signature so ``_refresh_spec`` does not clobber
 the patched model.
 
-The TPU economics: constraint *values* ride the ``AcParams`` pytree as
+The compile economics: constraint *values* ride the ``AcParams`` pytree as
 runtime arguments of the jitted IPM step (opf/ipm.py), so a value-only
 edit (bound tightened, cost coefficient changed, demand moved) re-solves
 against the already-compiled XLA executables. Structural edits (a

@@ -12,7 +12,7 @@ dense path, so the matrix is permuted to bordered block-diagonal form:
 Interior blocks factorize independently (vmapped mixed-precision dense
 factorizations — or one per device over a ``block`` mesh axis); the border
 Schur complement S = D - Σ_k C_k A_kk⁻¹ B_k reduces over blocks with a
-``psum`` riding ICI, the (small) border system solves replicated, and the
+``psum`` across devices, the (small) border system solves replicated, and the
 back-substitution is again embarrassingly block-parallel. This is the
 network-model-parallel axis that complements scenario data parallelism
 (parallel/batch.py), per the BASELINE north star.
@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+import jax.scipy.linalg as jsl
 import numpy as np
 import scipy.sparse as sp
 
@@ -168,13 +169,12 @@ def bbd_solve(arr: BbdArrays, rhs):
 def bbd_solve_sharded(mesh, arr: BbdArrays, rhs, axis: str = "block"):
     """Schur solve with interior blocks sharded over a mesh axis.
 
-    Per-device: factor its block, local Schur contribution; ``psum`` over
-    ICI combines the border system; the border solve replicates; the
-    back-substitution stays local. The number of blocks must equal the
-    axis size.
+    Per-device: factor its block, local Schur contribution; ``psum``
+    across the mesh combines the border system; the border solve
+    replicates; the back-substitution stays local. The number of blocks
+    must equal the axis size.
     """
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    from jax.experimental.shard_map import shard_map
+    from jax.sharding import PartitionSpec as P
 
     k = arr.a_ii.shape[0]
 
@@ -194,7 +194,7 @@ def bbd_solve_sharded(mesh, arr: BbdArrays, rhs, axis: str = "block"):
         x_i = y - z @ x_b
         return x_i[None], x_b
 
-    fn = shard_map(
+    fn = jax.shard_map(
         local, mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis), P(), P()),
         out_specs=(P(axis), P()))
@@ -228,23 +228,20 @@ def bbd_matvec(arr: BbdArrays, x):
 def bbd_solve_f64(arr: BbdArrays, rhs, refine: int = 2):
     """Full-f64 Schur solve for a symmetric quasi-definite BBD matrix.
 
-    The endgame companion of ``bbd_solve``: every principal submatrix of
-    an SQD matrix is SQD and so is its Schur complement (Vanderbei 1995),
-    so the interior blocks and the border system all admit the unpivoted
-    f64 LDL^T (linalg.ldlt_f64). Used when the f32 factorization's
-    backward error stalls the interior-point endgame (lin_res >= 1e-6 at
-    active-set conditioning) — the structured-path twin of
-    linalg.solve_f64_sqd. Block elimination's FORWARD error still scales
-    with the interior conditioning, so the factors drive ``refine``
-    f64 refinement sweeps against the full BBD operator (each sweep is
-    two cheap block matvecs + the already-computed triangular solves).
-    Cost: emulated-f64 matmuls (~10-20x the f32 MXU rate), paid only on
-    the handful of endgame iterations.
+    The endgame companion of ``bbd_solve``: the interior blocks (one
+    batched f64 LU) and the border Schur complement are factored in f64.
+    Used when the f32 factorization's backward error stalls the
+    interior-point endgame (lin_res >= 1e-6 at active-set conditioning) —
+    the structured-path twin of linalg.solve_f64_sqd. Block elimination's
+    FORWARD error still scales with the interior conditioning, so the
+    factors drive ``refine`` f64 refinement sweeps against the full BBD
+    operator (each sweep is two cheap block matvecs + the already-computed
+    triangular solves).
     """
-    l_i, d_i = jax.vmap(linalg.ldlt_f64)(arr.a_ii)
-    z = jax.vmap(linalg.ldlt_solve)(l_i, d_i, arr.a_ib)
+    f_i = jax.vmap(jsl.lu_factor)(arr.a_ii)
+    z = jax.vmap(jsl.lu_solve)(f_i, arr.a_ib)
     schur = arr.a_bb - jnp.sum(arr.a_bi @ z, axis=0)
-    l_s, d_s = linalg.ldlt_f64(schur)
+    f_s = jsl.lu_factor(schur)
 
     n = rhs.shape[0]
 
@@ -252,10 +249,10 @@ def bbd_solve_f64(arr: BbdArrays, rhs, refine: int = 2):
         r_i = jax.vmap(lambda idx, msk: b[idx] * msk)(
             arr.interior_idx, arr.interior_mask)
         r_b = b[arr.border_idx]
-        y = jax.vmap(linalg.ldlt_solve)(l_i, d_i, r_i)
+        y = jax.vmap(jsl.lu_solve)(f_i, r_i)
         rhs_b = r_b - jnp.sum(
             jnp.einsum("kmi,ki->km", arr.a_bi, y), axis=0)
-        x_b = linalg.ldlt_solve(l_s, d_s, rhs_b)
+        x_b = jsl.lu_solve(f_s, rhs_b)
         x_i = y - jnp.einsum("kim,m->ki", z, x_b)
         x = jnp.zeros(n, dtype=b.dtype).at[arr.border_idx].set(x_b)
         for blk in range(arr.a_ii.shape[0]):
@@ -321,17 +318,17 @@ def bbd_solve_local(arr: BbdLocalArrays, rhs):
 
 @jax.jit
 def bbd_solve_local_f64(arr: BbdLocalArrays, rhs, refine: int = 2):
-    """Full-f64 SQD LDL^T Schur solve on the local layout (the endgame
-    twin of bbd_solve_local; see bbd_solve_f64 for the math)."""
+    """Full-f64 LU Schur solve on the local layout (the endgame twin of
+    bbd_solve_local; see bbd_solve_f64 for the math)."""
     mb = arr.a_bb.shape[0]
-    l_i, d_i = jax.vmap(linalg.ldlt_f64)(arr.a_ii)
-    z = jax.vmap(linalg.ldlt_solve)(l_i, d_i, arr.a_ib)
+    f_i = jax.vmap(jsl.lu_factor)(arr.a_ii)
+    z = jax.vmap(jsl.lu_solve)(f_i, arr.a_ib)
     contrib = arr.a_bi @ z
     s_pad = jnp.zeros((mb + 1, mb + 1), dtype=rhs.dtype)
     s_pad = s_pad.at[arr.bsel[:, :, None], arr.bsel[:, None, :]].add(
         -contrib)
     schur = arr.a_bb + s_pad[:mb, :mb]
-    l_s, d_s = linalg.ldlt_f64(schur)
+    f_s = jsl.lu_factor(schur)
     n = rhs.shape[0]
 
     def matvec(x):
@@ -356,10 +353,10 @@ def bbd_solve_local_f64(arr: BbdLocalArrays, rhs, refine: int = 2):
         r_i = jax.vmap(lambda idx, msk: b[idx] * msk)(
             arr.interior_idx, arr.interior_mask)
         r_b = b[arr.border_idx]
-        y = jax.vmap(linalg.ldlt_solve)(l_i, d_i, r_i)
+        y = jax.vmap(jsl.lu_solve)(f_i, r_i)
         r_red = jnp.zeros(mb + 1, dtype=b.dtype).at[arr.bsel].add(
             jnp.einsum("kmi,ki->km", arr.a_bi, y))
-        x_b = linalg.ldlt_solve(l_s, d_s, r_b - r_red[:mb])
+        x_b = jsl.lu_solve(f_s, r_b - r_red[:mb])
         x_b_loc = jnp.concatenate(
             [x_b, jnp.zeros(1, dtype=b.dtype)])[arr.bsel] * arr.bmask
         x_i = y - jnp.einsum("kim,km->ki", z, x_b_loc)

@@ -1,24 +1,27 @@
-"""Mixed-precision dense linear algebra — the TPU-native factorization substrate.
+"""Mixed-precision dense linear algebra — the factorization substrate.
 
 This replaces the reference's sparse direct solvers (KLU/UMFPACK/CHOLMOD/SPQR
-reached through /root/reference/src/backend/utility.jl:470-587). On TPU the
-XLA LU/Cholesky expanders are f32-only while the MXU delivers its FLOPs in
-f32/bf16; f64 is supported (software emulated) for elementwise ops, matmuls
-and triangular solves. We therefore:
+reached through /root/reference/src/backend/utility.jl:470-587). The dense
+path:
 
-  * factorize in f32 on the MXU (fast path),
-  * solve with f64 iterative refinement: r = b - A x in f64, correction
+  * factorizes in f32,
+  * solves with f64 iterative refinement: r = b - A x in f64, correction
     d = solve_f32(r), x <- x + d.
 
 Two refinement sweeps recover ~1e-15 relative residuals for the
 well-scaled power-system matrices this framework produces (Jacobians, gain
 matrices, B matrices), matching the reference's f64 direct solves to its
 test tolerances. All functions are pure and jit/vmap-compatible: scenario
-batching maps the factorization onto batched MXU matmuls.
+batching maps the factorization onto batched dense kernels.
+
+Every f32 matrix product here carries ``Precision.HIGHEST``: at default
+precision a GPU may run f32 products in TF32 (about three decimal digits),
+which stalls the refinement. ``solve_f64_sqd`` is the full-f64 direct
+solve for systems the f32 factorization cannot carry.
 
 The ``kind`` tags (LU / KLU / QR / LL / LDLt) mirror the reference's
-factorization menu; KLU aliases LU and LDLt aliases LL (Cholesky) — on TPU
-they share the dense mixed-precision path.
+factorization menu; KLU aliases LU and LDLt aliases LL (Cholesky) — they
+share the dense mixed-precision path.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ LDLT = "LDLt"
 PW = "PW"  # Peters-Wilkinson tall LU + L-normal equations
 
 _REFINE_STEPS = 3
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class DenseFactor(NamedTuple):
@@ -55,7 +59,7 @@ def _solve_f32(kind: str, data: tuple, rhs32: jax.Array) -> jax.Array:
         return jsl.lu_solve((lu, piv), rhs32)
     if kind == "QR":
         q, r = data
-        y = q.T @ rhs32
+        y = jnp.matmul(q.T, rhs32, precision=_HIGHEST)
         return jsl.solve_triangular(r, y, lower=False)
     if kind == "LL":
         (c,) = data
@@ -64,7 +68,7 @@ def _solve_f32(kind: str, data: tuple, rhs32: jax.Array) -> jax.Array:
 
 
 def factorize(a64: jax.Array, kind: str = LU) -> DenseFactor:
-    """Factorize in f32 (MXU); keep the f64 matrix for refinement.
+    """Factorize in f32; keep the f64 matrix for refinement.
 
     Mirrors reference ``factorization`` (fresh symbolic+numeric). There is no
     symbolic phase for the dense path — refactorization is identical — so
@@ -91,7 +95,7 @@ def solve(factor: DenseFactor, b64: jax.Array,
     x = x.astype(b64.dtype)
 
     def body(_, x):
-        r = b64 - factor.a64 @ x
+        r = b64 - jnp.matmul(factor.a64, x, precision=_HIGHEST)
         d = _solve_f32(factor.kind, factor.data, r.astype(jnp.float32))
         return x + d.astype(b64.dtype)
 
@@ -125,18 +129,19 @@ def pw_lsq_solve(a64: jax.Array, b64: jax.Array,
     lu, _, perm = jax.lax.linalg.lu(a32)
     low = jnp.tril(lu, -1)[:, :k] + jnp.eye(m, k, dtype=jnp.float32)
     up = jnp.triu(lu[:k, :])
-    ltl = low.T @ low
+    ltl = jnp.matmul(low.T, low, precision=_HIGHEST)
     chol = jsl.cho_factor(ltl, lower=True)[0]
 
     def ls_solve32(rhs64):
         rhs32 = rhs64.astype(jnp.float32)[perm]
-        y = jsl.cho_solve((chol, True), low.T @ rhs32)
+        y = jsl.cho_solve((chol, True),
+                          jnp.matmul(low.T, rhs32, precision=_HIGHEST))
         return jsl.solve_triangular(up, y, lower=False)
 
     x = ls_solve32(b64).astype(b64.dtype)
 
     def body(_, x):
-        r = b64 - a64 @ x
+        r = b64 - jnp.matmul(a64, x, precision=_HIGHEST)
         return x + ls_solve32(r).astype(b64.dtype)
 
     return jax.lax.fori_loop(0, refine, body, x)
@@ -154,149 +159,47 @@ def lu_solve_refined(lu, piv, a64, b64, refine: int = _REFINE_STEPS):
     x = jsl.lu_solve((lu, piv), b64.astype(jnp.float32)).astype(b64.dtype)
 
     def body(_, x):
-        r = b64 - a64 @ x
+        r = b64 - jnp.matmul(a64, x, precision=_HIGHEST)
         d = jsl.lu_solve((lu, piv), r.astype(jnp.float32))
         return x + d.astype(b64.dtype)
 
     return jax.lax.fori_loop(0, refine, body, x)
 
 
-# XLA's BATCHED LuDecompositionBlock custom call stages a (k, n, 128)
-# f32 panel in scoped VMEM (16 MB): past ~k*n*512 B it fails to COMPILE
-# ("ran out of memory in memory space vmem", 25k-bus round-4 finding) —
-# and since k*n tracks the TOTAL interior row count, no block-count
-# rebalancing can save a big enough system. Above the row budget the
-# batch factors sequentially with lax.map: each block's LU is large
-# enough to occupy the MXU on its own, so batching loses little there.
-_BATCH_LU_VMEM_ROWS = 20000
-
-# test seam: number of times the sequential lax.map branch below has been
-# TRACED (the branch decision is Python-level, so a cached jit executable
-# re-runs without re-tracing — tests assert on this counter to prove the
-# sequential path was actually compiled, not silently served the vmap
-# branch from cache).
-_seq_lu_traces = 0
-
-
 def batched_lu_solve2(a_ii, r1, r2):
-    """Per-block LU factor + two refined solves, batch-size aware.
+    """Per-block LU factor + two refined solves.
 
     a_ii: (k, n, n); r1: (k, n) or (k, n, m); r2: (k, n, m2).
-    Returns (y1, y2) matching the vmapped semantics."""
-    k, n, _ = a_ii.shape
-    if k * n <= _BATCH_LU_VMEM_ROWS:
-        lu, piv = jax.vmap(lu_factor32)(a_ii)
-        y1 = jax.vmap(lu_solve_refined)(lu, piv, a_ii, r1)
-        y2 = jax.vmap(lu_solve_refined)(lu, piv, a_ii, r2)
-        return y1, y2
-
-    global _seq_lu_traces
-    _seq_lu_traces += 1
-
-    def per_block(ab):
-        a, b1, b2 = ab
-        lu, piv = lu_factor32(a)
-        return (lu_solve_refined(lu, piv, a, b1),
-                lu_solve_refined(lu, piv, a, b2))
-
-    return jax.lax.map(per_block, (a_ii, r1, r2))
+    Returns (y1, y2), each block solved against its own factor."""
+    lu, piv = jax.vmap(lu_factor32)(a_ii)
+    y1 = jax.vmap(lu_solve_refined)(lu, piv, a_ii, r1)
+    y2 = jax.vmap(lu_solve_refined)(lu, piv, a_ii, r2)
+    return y1, y2
 
 
 # ---------------------------------------------------------------------------
-# Full-f64 blocked LDL^T — the endgame factorization.
+# Full-f64 direct solve — the interior-point endgame factorization.
 #
-# TPU XLA has no f64 LU/Cholesky expander, and near an interior-point
-# active set the equilibrated KKT's condition number exceeds what the f32
-# factorization can carry (round-4 pegase finding: lin_res stalls > 1e-6,
-# IR diverges, f32-preconditioned GMRES stagnates ~1e-2 — the f32
-# BACKWARD ERROR is the wall). The KKT in its regularized form
+# Near an interior-point active set the equilibrated KKT's condition number
+# exceeds what the f32 factorization can carry (pegase: lin_res stalls above
+# 1e-6 and refinement diverges — the f32 BACKWARD ERROR is the wall). The
+# regularized KKT
 #     [ W + Sigma + delta I      J_E^T   ]
 #     [ J_E                    -delta_c I ]
-# is symmetric QUASI-DEFINITE for delta, delta_c > 0, and SQD matrices
-# admit a stable LDL^T WITHOUT pivoting (Vanderbei 1995; Gill et al.) —
-# exactly the shape a TPU wants: no pivot search, panel recurrences in
-# f64 vector ops, trailing updates as emulated-f64 MXU matmuls (the
-# dominant cost, ~n^3/3 FLOPs). Used as the host-triggered fallback when
-# the f32 path's linear residual check fails.
+# is symmetric quasi-definite (SQD) for delta, delta_c > 0; it is solved
+# here by a partial-pivoted f64 LU. Used as the host-triggered fallback
+# when the f32 path's linear residual check fails.
 # ---------------------------------------------------------------------------
-
-_LDLT_PANEL = 128
-
-
-def ldlt_f64(a64: jax.Array, panel: int = _LDLT_PANEL):
-    """Unpivoted blocked LDL^T of a symmetric (quasi-definite) matrix in
-    full f64. Returns (L unit-lower, d diagonal)."""
-    n = a64.shape[0]
-    nb = -(-n // panel)
-    n_pad = nb * panel
-    # pad with an identity tail so every panel is full
-    a = jnp.zeros((n_pad, n_pad), dtype=a64.dtype)
-    a = a.at[:n, :n].set(a64)
-    a = a.at[jnp.arange(n, n_pad), jnp.arange(n, n_pad)].set(1.0)
-
-    def panel_step(k, carry):
-        l_mat, d_vec, a_work = carry
-        c0 = k * panel
-        rows = jnp.arange(n_pad)
-        # the unblocked recurrence only ever touches THIS panel's column
-        # stripe — slice it once so every per-column downdate moves
-        # (n_pad, panel) data, not a masked (n_pad, n_pad) outer product
-        # (the latter is ~n/panel times the HBM traffic: hours at 6k)
-        stripe = jax.lax.dynamic_slice(a_work, (0, c0), (n_pad, panel))
-        cols_idx = jnp.arange(panel)
-
-        def col_step(j, sc):
-            stripe, lpan, dpan = sc
-            col = c0 + j
-            ajj = stripe[col, j]
-            d_j = jnp.where(jnp.abs(ajj) > 1e-300, ajj,
-                            jnp.where(ajj >= 0, 1e-300, -1e-300))
-            lcol = jnp.where(rows > col, stripe[:, j] / d_j, 0.0)
-            # rank-1 downdate of the remaining panel columns: the needed
-            # row values of lcol are its entries at the panel rows
-            lrow = jax.lax.dynamic_slice(lcol, (c0,), (panel,))
-            upd = lcol[:, None] * (d_j * lrow)[None, :]
-            stripe = stripe - jnp.where((cols_idx > j)[None, :], upd, 0.0)
-            lpan = lpan.at[:, j].set(jnp.where(rows == col, 1.0, lcol))
-            dpan = dpan.at[j].set(d_j)
-            return stripe, lpan, dpan
-
-        lpan0 = jnp.zeros((n_pad, panel), dtype=a64.dtype)
-        dpan0 = jnp.zeros(panel, dtype=a64.dtype)
-        _, l_pan, d_pan = jax.lax.fori_loop(
-            0, panel, col_step, (stripe, lpan0, dpan0))
-
-        l_mat = jax.lax.dynamic_update_slice(l_mat, l_pan, (0, c0))
-        d_vec = jax.lax.dynamic_update_slice(d_vec, d_pan, (c0,))
-
-        # blocked trailing update: A_22 -= L_2k D_k L_2k^T
-        beyond = rows >= c0 + panel
-        l_tail = jnp.where(beyond[:, None], l_pan, 0.0)
-        a_work = a_work - l_tail @ (d_pan[:, None] * l_tail.T)
-        return l_mat, d_vec, a_work
-
-    l0 = jnp.zeros((n_pad, n_pad), dtype=a64.dtype)
-    d0 = jnp.zeros(n_pad, dtype=a64.dtype)
-    l_mat, d_vec, _ = jax.lax.fori_loop(
-        0, nb, panel_step, (l0, d0, a))
-    return l_mat[:n, :n], d_vec[:n]
-
-
-def ldlt_solve(l_mat: jax.Array, d_vec: jax.Array, b64: jax.Array):
-    """Solve L D L^T x = b in f64 (unit-lower triangular solves)."""
-    y = jsl.solve_triangular(l_mat, b64, lower=True, unit_diagonal=True)
-    y = y / d_vec if y.ndim == 1 else y / d_vec[:, None]
-    return jsl.solve_triangular(l_mat.T, y, lower=False,
-                                unit_diagonal=True)
-
 
 def solve_f64_sqd(a64: jax.Array, b64: jax.Array,
                   refine: int = 1) -> jax.Array:
-    """One-shot f64 LDL^T factor + solve with one refinement sweep."""
-    l_mat, d_vec = ldlt_f64(a64)
-    x = ldlt_solve(l_mat, d_vec, b64)
+    """One-shot f64 LU factor + solve with ``refine`` refinement sweeps."""
+    factors = jsl.lu_factor(a64)
+    x = jsl.lu_solve(factors, b64)
 
     def body(_, x):
-        return x + ldlt_solve(l_mat, d_vec, b64 - a64 @ x)
+        return x + jsl.lu_solve(factors, b64 - a64 @ x)
 
     return jax.lax.fori_loop(0, refine, body, x)
+
+

@@ -20,7 +20,7 @@ Measured on case_ACTIVSg10k (vs the BFS partitioner): border 720 vs 2422
 at k=16 on the nodal pattern; 1733 vs 5983 on the squared (gain) pattern.
 
 The reference delegates ordering/partitioning to AMD/KLU inside
-SuiteSparse (backend/utility.jl:470-562); this is the TPU-era equivalent
+SuiteSparse (backend/utility.jl:470-562); this is the equivalent here,
 where the partition feeds block-parallel dense factorizations instead of
 a serial sparse elimination tree.
 """

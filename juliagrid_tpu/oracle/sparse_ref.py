@@ -11,11 +11,11 @@ factorization; here scipy ``splu``). It serves two purposes:
    the larger public cases (IEEE 118/300, PEGASE 1354, RTE 1951, ACTIVSg10k)
    where no shipped oracle exists.
 2. **Honest CPU baseline for bench.py.** ``vs_baseline`` ratios compare the
-   TPU path against this sparse implementation — the same algorithm/stack
+   JAX device path against this sparse implementation — the same algorithm/stack
    shape the reference uses (sparse CSC Jacobian fill + LU refactorization),
    not a dense strawman.
 
-Independence: only the host data model and parsers are shared with the TPU
+Independence: only the host data model and parsers are shared with the JAX
 framework. Y-bus assembly, mismatch evaluation, Jacobian construction and
 the linear algebra are all implemented here separately (complex-matrix
 formulation), so agreement with the JAX path is a genuine cross-check.

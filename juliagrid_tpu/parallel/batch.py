@@ -4,13 +4,13 @@ The reference is single-threaded, single-process (SURVEY §5): its users run
 scenario studies by re-running scripts. Here the scenario axis is a
 first-class array dimension:
 
-  * within one chip: ``jax.vmap`` over the solver cores (mismatch/Jacobian
-    assembly become batched segment-sums, the factorizations become batched
-    MXU matmul pipelines);
-  * across a pod slice: ``NamedSharding`` over a ``Mesh`` with a
-    ``scenario`` axis — XLA partitions the batched program with zero
-    cross-device communication except the final convergence reductions,
-    which ride ICI as ``psum``-style collectives.
+  * within one device: ``jax.vmap`` over the solver cores (mismatch/
+    Jacobian assembly become batched segment-sums, the factorizations
+    become batched dense factorizations and matmuls);
+  * across devices: ``NamedSharding`` over a ``Mesh`` with a ``scenario``
+    axis — XLA partitions the batched program with zero cross-device
+    communication except the final convergence reductions, which run as
+    ``psum``-style collectives.
 
 Network-block (BBD/Schur) sharding for single giant cases is the ``block``
 mesh axis; see ops/bbd.py.
@@ -99,7 +99,7 @@ def sharded_nr_solve(mesh: Mesh, arr: AcArrays, vm0, va0, p_sched, q_sched,
     """Scenario-sharded batched NR over the mesh.
 
     The network snapshot is replicated; scenario states are sharded on the
-    leading axis. XLA inserts the (tiny) ICI collectives for the global
+    leading axis. XLA inserts the (tiny) collectives for the global
     convergence test in the while_loop condition.
     """
     repl = NamedSharding(mesh, P())
@@ -121,8 +121,9 @@ def batched_se_solve(arr, net, vm0, va0, means,
 
     ``means`` has shape (scenarios, rows); the measurement pattern, weights
     and network are shared, so the H-build and gain formation vectorize into
-    batched MXU matmuls. This is the BASELINE "10k-scenario Monte-Carlo SE"
-    configuration: shard the leading axis over the mesh for pod scale-out.
+    batched matmuls. This is the BASELINE "10k-scenario Monte-Carlo SE"
+    configuration: shard the leading axis over the mesh to scale out;
+    ``se_chunk_size`` sizes the scenario chunks that fit one device.
     """
     from ..estimation.acse import gn_increment
 
@@ -177,18 +178,33 @@ def sharded_se_solve(mesh: Mesh, arr, net, vm0, va0, means,
                                 tol=tol, max_iter=max_iter)
 
 
+def se_chunk_size(rows: int, n_bus: int, bytes_limit: int,
+                  cap: int = 256) -> int:
+    """Largest power-of-two scenario chunk of ``batched_se_solve`` whose
+    estimated footprint fits a quarter of ``bytes_limit`` (the device's
+    ``memory_stats()["bytes_limit"]``; the rest is headroom for XLA's
+    temporaries). Per scenario: the f32 dense H and its weight-scaled copy
+    (2 x rows x 2n) plus ~3 f32 (2n)^2 gain/LU/temporaries."""
+    s = 2 * n_bus
+    per_scenario = 4 * (2 * rows * s + 3 * s * s)
+    chunk = cap
+    while chunk > 1 and chunk * per_scenario > bytes_limit // 4:
+        chunk //= 2
+    return chunk
+
+
 # ---------------------------------------------------------------------------
-# f32 fast path: full-MXU-speed fleets at relaxed tolerance
+# f32 fast path: screening fleets at relaxed tolerance
 # ---------------------------------------------------------------------------
 
 def batched_nr_solve_f32(arr: AcArrays, vm0, va0, p_sched, q_sched,
                          tol: float = 1e-5, max_iter: int = 20):
-    """Newton-Raphson fleet in pure f32 (no refinement).
+    """Newton-Raphson fleet in pure f32 (the refinement products run in
+    f32 at ``Precision.HIGHEST``).
 
-    f64 on TPU is software-emulated; casting the network snapshot and
-    states to f32 roughly doubles throughput. Converges to ~1e-5 mismatch
-    — document as the screening mode; rerun suspicious scenarios through
-    the f64 path.
+    Halves the state and network bytes of the f64 fleet. Converges to
+    ~1e-5 mismatch — the screening mode; rerun suspicious scenarios
+    through the f64 path.
     """
     arr32 = arr._replace(
         yg=arr.yg.astype(jnp.float32), yb=arr.yb.astype(jnp.float32),
@@ -213,7 +229,7 @@ def batched_dc_solve(arr, p_sched, method: str = "LU"):
 
     ``arr`` is a ``DcArrays`` snapshot (powerflow/dc.py); ``p_sched`` is
     f64[nscen, n] scheduled injections. The (shared) slack-masked B'
-    matrix is factorized ONCE on the MXU and the per-scenario triangular
+    matrix is factorized ONCE and the per-scenario triangular
     solves are batched — the amortization the constant DC matrix exists
     for (the reference re-factorizes per run, dcPowerFlow.jl:165-193).
 

@@ -4,12 +4,12 @@ Reference: /root/reference/src/powerFlow/acPowerFlow.jl:215-483 (model and
 constant B'/B'' Jacobians), :698-730 (V-scaled mismatches), :913-983 (the
 half-iteration scheme: P-solve, angle update, fresh Q mismatch, Q-solve).
 
-TPU design: B' and B'' are constant, so they are masked to full n x n
-(identity on slack / non-PQ rows) and factorized ONCE in f32 on the MXU at
+Design: B' and B'' are constant, so they are masked to full n x n
+(identity on slack / non-PQ rows) and factorized ONCE in f32 at
 construction; every iteration is then two triangular-solve + refinement
 passes and one vectorized mismatch evaluation — no per-iteration
-factorization at all. This is the ideal amortization case the reference
-gets from KLU refactorization, delivered natively by the MXU.
+factorization at all. This is the amortization the reference gets from
+KLU refactorization.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Reference: /root/reference/src/powerFlow/acPowerFlow.jl:563-619 (setup),
 :732-764 (mismatch on PQ/PV buses), :985-1041 (sequential sweep: PQ update,
 PV update with computed reactive injection, PV magnitude re-projection).
 
-The per-bus sweep is inherently sequential; on TPU it runs as a
+The per-bus sweep is inherently sequential; on the device it runs as a
 ``lax.fori_loop`` over a padded per-bus neighbor table (static shapes,
 gather + masked dot per step). Complex arithmetic is carried as explicit
 (re, im) f64 pairs. This method exists for capability parity — the NR and

@@ -79,8 +79,8 @@ class NrBbdArrays(NamedTuple):
     # locality-compressed border: each block only couples to the border
     # buses on its own perimeter, so the coupling strips store 2*mbl
     # local columns instead of 2*mb global ones (the (k, ni, mb) arrays
-    # were the HBM wall of the 70k-class envelope: k*ni*mb grows ~n^1.5
-    # while k*ni*mbl grows ~n). bsel maps local border slots to global
+    # are the device-memory wall of the 70k-class envelope: k*ni*mb grows
+    # ~n^1.5 while k*ni*mbl grows ~n). bsel maps local border slots to global
     # ones (padded with 2*mb -> a dummy scatter target).
     bsel: jax.Array        # i32[k, 2mbl]
     bmask: jax.Array       # f64[k, 2mbl] 1 for real local slots

@@ -10,7 +10,6 @@ piecewise costs as stacked rows [gen, output, price].
 
 from __future__ import annotations
 
-import h5py
 import numpy as np
 
 from ..utils.labels import LabelRegistry
@@ -38,8 +37,38 @@ def _labels(ds):
     return out
 
 
+class _NpzFile:
+    """The part of ``h5py.File``'s interface that ``load_power_system``
+    reads, over an .npz written by benchmarks/h5_to_npz.py: datasets keyed
+    by their HDF5 path, root attributes keyed by "@<name>"."""
+
+    def __init__(self, path: str):
+        self._z = np.load(path)
+        self.attrs = {k[1:]: self._z[k][()] for k in self._z.files
+                      if k.startswith("@")}
+
+    def __contains__(self, key):
+        return key in self._z.files
+
+    def __getitem__(self, key):
+        return self._z[key]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._z.close()
+
+
 def load_power_system(system: PowerSystem, path: str) -> None:
-    with h5py.File(path, "r") as fh:
+    """Read a JuliaGrid HDF5 case, or its .npz copy (no h5py needed)."""
+    if path.lower().endswith(".npz"):
+        opened = _NpzFile(path)
+    else:
+        import h5py
+        opened = h5py.File(path, "r")
+
+    with opened as fh:
         n = int(fh.attrs["number of buses"])
         m = int(fh.attrs["number of branches"])
         g = int(fh.attrs["number of generators"])
@@ -211,6 +240,8 @@ def save_power_system(system: PowerSystem, path: str,
     """Reference savePowerSystem (save.jl:22-412)."""
     n, m, g = system.bus.number, system.branch.number, system.generator.number
     bus, branch, gen = system.bus, system.branch, system.generator
+    import h5py
+
     with h5py.File(path, "w") as fh:
         fh.attrs["number of buses"] = n
         fh.attrs["number of branches"] = m

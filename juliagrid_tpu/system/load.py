@@ -2,7 +2,8 @@
 
 Equivalent of the reference ``powerSystem`` entry points
 (/root/reference/src/powerSystem/load.jl:36-103): dispatch on file
-extension (.m / .raw / .h5), or build an empty system for manual
+extension (.m / .raw / .h5, or the .npz copy of an .h5 written by
+benchmarks/h5_to_npz.py), or build an empty system for manual
 construction with the add_* builders.
 """
 
@@ -27,7 +28,7 @@ def power_system(path: str | None = None, optimal: bool = True) -> PowerSystem:
     elif ext == ".raw":
         from .psse import parse_psse
         parse_psse(system, path)
-    elif ext in (".h5", ".hdf5"):
+    elif ext in (".h5", ".hdf5", ".npz"):
         from .hdf5io import load_power_system
         load_power_system(system, path)
     else:

@@ -2,7 +2,7 @@
 
 The reference leans on Julia's ``@time``/BenchmarkTools culture and prints
 wall times in its verbose solver output; it has no deeper profiler of its
-own. The TPU equivalent needs two levels:
+own. This framework needs two levels:
 
 * **host spans** — named wall-clock sections (build / compile / iterate /
   postprocess) accumulated per analysis and printable as a table. Driver
@@ -10,8 +10,8 @@ own. The TPU equivalent needs two levels:
   breakdown (``analysis.method.timings``) without external tooling.
 * **device traces** — ``trace(logdir)`` wraps ``jax.profiler`` so a real
   solve can be captured and inspected in XProf/TensorBoard (HLO-level
-  fusion, HBM traffic, MXU utilization). This is the path used to verify
-  kernels against speed-of-light, not host timers.
+  fusion, device-memory traffic, per-kernel device time). This is the
+  path used to verify kernels against speed-of-light, not host timers.
 
 Spans measure *host-observed* wall time: a jitted call that returns
 without blocking contributes its dispatch cost only, so drivers that want
@@ -78,19 +78,13 @@ def span(name: str, timings: Timings | None = None):
         yield
 
 
-@contextmanager
 def trace(logdir: str):
     """Capture a device-level profiler trace to ``logdir`` (XProf /
-    TensorBoard format). Wraps ``jax.profiler.trace``; on backends where
-    profiling is unavailable this degrades to a no-op span."""
+    TensorBoard format) as a context manager. Wraps
+    ``jax.profiler.trace``; a profiler failure raises."""
     import jax
 
-    try:
-        with jax.profiler.trace(logdir):
-            yield
-    except Exception:
-        with default_timings.span(f"trace:{logdir}"):
-            yield
+    return jax.profiler.trace(logdir)
 
 
 def annotate(name: str):
@@ -99,3 +93,26 @@ def annotate(name: str):
     import jax
 
     return jax.profiler.TraceAnnotation(name)
+
+
+def gpu_report() -> dict:
+    """The GPU(s) a measurement runs on: JAX's view (platform, device
+    kind, count, version) and each card's name and power limit as
+    ``nvidia-smi`` reports them. Raises ``RuntimeError`` unless JAX's
+    first device is a GPU: a measurement never falls back to the CPU."""
+    import subprocess
+
+    import jax
+
+    devices = jax.devices()
+    if devices[0].platform != "gpu":
+        raise RuntimeError(f"needs a GPU; JAX's first device is "
+                           f"{devices[0].platform!r}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return {"platform": devices[0].platform,
+            "device_kind": devices[0].device_kind,
+            "count": len(devices), "jax": jax.__version__,
+            "cards": [line.strip() for line in smi.strip().splitlines()]}

@@ -139,3 +139,23 @@ def test_drivers_record_timings():
     se = jg.gauss_newton(mon)
     jg.state_estimation(se)
     assert se.method.timings.total("solve") > 0
+
+
+def test_trace_writes_a_device_trace(tmp_path):
+    import jax.numpy as jnp
+
+    from juliagrid_tpu.utils.profiling import trace
+
+    with trace(str(tmp_path)):
+        jnp.ones(8).sum().block_until_ready()
+    assert list(tmp_path.rglob("*.xplane.pb"))
+
+
+def test_trace_failure_raises(tmp_path):
+    """A profiler that cannot start raises; nothing runs untraced."""
+    from juliagrid_tpu.utils.profiling import trace
+
+    with trace(str(tmp_path / "outer")):
+        with pytest.raises(RuntimeError):
+            with trace(str(tmp_path / "inner")):
+                pass

@@ -201,7 +201,7 @@ def test_peters_wilkinson_path(data_path):
 
 
 def test_normal_path_refinement_gate_ill_conditioned_at_scale(data_path):
-    """Residual-gated refinement on the f32-MXU Normal-equations gain,
+    """Residual-gated refinement on the f32 Normal-equations gain,
     ill-conditioned case at 118-bus scale: a 1e16 weight ratio spread
     across the full voltmeter set drives cond(H'WH) ≈ 1e14 — far past the
     nominal cond·eps32 < 1 comfort zone — and the gated sweeps must keep
@@ -267,3 +267,18 @@ def test_normal_path_refinement_gate_escalates_to_qr(data_path):
     state_estimation(se)
     assert getattr(se.method, "refine_escalated", False), \
         "gate should have escalated the unrefinable Normal path to QR"
+
+
+def test_se_chunk_size_fits_a_quarter_of_device_memory():
+    """Batched-SE chunks are the largest power of two whose estimated
+    footprint fits a quarter of the device's memory limit."""
+    from juliagrid_tpu.parallel.batch import se_chunk_size
+
+    rows, n = 12298, 1354          # the pegase SCADA+PMU set
+    per_scenario = 4 * (2 * rows * 2 * n + 3 * (2 * n) ** 2)
+    limit = 63763120128            # 75% of an 80 GB card
+    chunk = se_chunk_size(rows, n, limit, cap=256)
+    assert chunk == 32
+    assert chunk * per_scenario <= limit // 4 < 2 * chunk * per_scenario
+    assert se_chunk_size(rows, n, limit, cap=16) == 16
+    assert se_chunk_size(rows, n, per_scenario, cap=256) == 1

@@ -179,3 +179,39 @@ def test_h5_multiple_slack_picks_first(data_path, tmp_path):
     loaded = jg.power_system(str(out))
     assert loaded.bus.layout.slack == min(
         np.flatnonzero(loaded.bus.layout.type.array[:loaded.bus.number] == 3))
+
+
+@pytest.mark.parametrize("case", ["case1354pegase", "case_ACTIVSg10k"])
+def test_npz_copy_loads_like_h5(case, data_path):
+    """The .npz copy (read without h5py) builds the same system."""
+    a = jg.power_system(str(data_path / f"{case}.h5"))
+    b = jg.power_system(str(data_path / f"{case}.npz"))
+    assert (a.bus.number, a.branch.number, a.generator.number) == \
+        (b.bus.number, b.branch.number, b.generator.number)
+    assert a.bus.label.labels() == b.bus.label.labels()
+    assert a.bus.layout.slack == b.bus.layout.slack
+    for get in (lambda s: s.bus.layout.type, lambda s: s.bus.demand.active,
+                lambda s: s.bus.voltage.magnitude,
+                lambda s: s.bus.supply.reactive,
+                lambda s: s.branch.parameter.reactance,
+                lambda s: s.branch.layout.to_bus,
+                lambda s: s.branch.flow.max_from_bus,
+                lambda s: s.generator.capability.max_active):
+        np.testing.assert_array_equal(get(a).array, get(b).array)
+    assert a.generator.cost.active.polynomial.keys() == \
+        b.generator.cost.active.polynomial.keys()
+    for k, v in a.generator.cost.active.polynomial.items():
+        np.testing.assert_array_equal(v, b.generator.cost.active.polynomial[k])
+
+
+def test_npz_copies_match_h5_files(data_path):
+    """The committed .npz files are current copies of their .h5 sources
+    (regenerate with benchmarks/h5_to_npz.py)."""
+    from benchmarks.h5_to_npz import FILES, h5_arrays
+
+    for name in FILES:
+        want = h5_arrays(str(data_path / name))
+        with np.load(str(data_path / name.replace(".h5", ".npz"))) as got:
+            assert sorted(got.files) == sorted(want)
+            for key, value in want.items():
+                np.testing.assert_array_equal(got[key], value)

@@ -1,10 +1,9 @@
-"""Full-f64 blocked LDL^T (the IPM endgame factorization).
+"""Full-f64 LU solve (the IPM endgame factorization).
 
-TPU XLA has no f64 LU/Cholesky expander; near an interior-point active
-set the equilibrated KKT's condition exceeds the f32 factorization's
-backward error (pegase round-4 finding). linalg.solve_f64_sqd must match
-LAPACK-grade f64 accuracy where the f32+IR path has already lost the
-solution."""
+Near an interior-point active set the equilibrated KKT's condition
+exceeds the f32 factorization's backward error (the pegase endgame).
+linalg.solve_f64_sqd must match LAPACK-grade f64 accuracy where the
+f32+IR path has already lost the solution."""
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +18,7 @@ def _spd_cond(n, cond_exp, seed=0):
     return (q * np.logspace(0, -cond_exp, n)) @ q.T
 
 
-def test_ldlt_f64_beats_f32_at_cond_1e10():
+def test_f64_solve_beats_f32_at_cond_1e10():
     n = 300
     a = _spd_cond(n, 10)
     rng = np.random.default_rng(1)
@@ -38,9 +37,9 @@ def test_ldlt_f64_beats_f32_at_cond_1e10():
     assert np.max(np.abs(xf - x_true)) < 10 * np.max(np.abs(xnp - x_true))
 
 
-def test_ldlt_f64_sqd_indefinite():
+def test_f64_solve_sqd_indefinite():
     """Symmetric quasi-definite KKT shape: [H+Sigma, J'; J, -dc*I] with
-    Sigma spanning 1e16 — unpivoted LDL^T must stay exact."""
+    Sigma spanning 1e16 — the f64 solve must stay exact."""
     rng = np.random.default_rng(2)
     n_x, m = 150, 90
     h = rng.standard_normal((n_x, n_x))
@@ -57,16 +56,15 @@ def test_ldlt_f64_sqd_indefinite():
     x_true = rng.standard_normal(n_x + m)
     b = a_s @ x_true
 
-    lmat, dvec = jax.jit(linalg.ldlt_f64)(jnp.asarray(a_s))
-    # D must carry the SQD signature: n_x positives, m negatives
-    assert int(np.sum(np.asarray(dvec) > 0)) == n_x
-    xf = np.asarray(linalg.ldlt_solve(lmat, dvec, jnp.asarray(b)))
+    xf = np.asarray(jax.jit(linalg.solve_f64_sqd)(
+        jnp.asarray(a_s), jnp.asarray(b)))
     assert np.max(np.abs(a_s @ xf - b)) / np.max(np.abs(b)) < 1e-10
 
 
-def test_ldlt_f64_odd_size_padding():
-    """n not a multiple of the panel: the identity tail must not leak."""
-    n = 193  # prime, < panel and > panel tested via monkey panel
+def test_f64_solve_odd_size_unrefined():
+    """An odd (prime) size solved without a refinement sweep: the direct
+    f64 factorization alone is LAPACK-grade."""
+    n = 193
     a = _spd_cond(n, 4, seed=3)
     rng = np.random.default_rng(4)
     b = rng.standard_normal(n)

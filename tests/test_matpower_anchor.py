@@ -4,7 +4,7 @@
 case118 (itself converted from the IEEE 118-bus CDF archive). The bus
 matrix's Vm/Va columns carry the published solved operating point, so a
 flat(-magnitude) Newton-Raphson run can be checked against numbers NOT
-produced by this repo's own oracle (VERDICT r2, Missing #7: the scale
+produced by this repo's own oracle (an earlier review found the scale
 goldens were self-generated).
 
 Known deviation: MATPOWER changed branches 86-87 and 68-116 from lines

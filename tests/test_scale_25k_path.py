@@ -1,64 +1,29 @@
-"""Pin the >=25k-bus BBD solve path on the CPU mesh.
+"""Per-block LU of the BBD interior blocks (linalg.batched_lu_solve2).
 
-XLA's BATCHED LuDecompositionBlock stages a (k, n, 128) f32 panel in
-16 MB scoped VMEM; at 25k buses k*2ni exceeds it for ANY block count, so
-linalg.batched_lu_solve2 switches to a sequential lax.map. This test
-forces that path at small scale and asserts exact parity with the dense
-NR solve — the shape of benchmarks/scale_25k.py without the scale."""
+The >=25k-bus BBD solve factors every interior block in one batched LU;
+each block's two refined solves must match a solve against that block's
+own factors, whatever the block count and size."""
 
+import jax
+import jax.numpy as jnp
+import jax.scipy.linalg as jsl
 import numpy as np
 import pytest
 
-import juliagrid_tpu as jg
-import juliagrid_tpu.ops.linalg as linalg_mod
-from juliagrid_tpu.powerflow.ac import newton_raphson
-from juliagrid_tpu.powerflow.driver import power_flow
-from juliagrid_tpu.powerflow.newton_bbd import (newton_raphson_bbd,
-                                                power_flow_bbd)
-from juliagrid_tpu.utils.synthetic import synthetic_grid
+from juliagrid_tpu.ops import linalg
 
 
-def test_nr_bbd_laxmap_lu_parity(data_path, monkeypatch):
-    system = jg.power_system(str(data_path / "case118.m"))
-    pf = newton_raphson(system)
-    power_flow(pf)
-
-    monkeypatch.setattr(linalg_mod, "_BATCH_LU_VMEM_ROWS", 10)
-    # the solve is a module-level jitted function: if an earlier test
-    # already compiled these shapes, the cached (vmap-branch) executable
-    # would be silently reused and the patched threshold never consulted —
-    # clear the cache and prove via the trace counter that the sequential
-    # lax.map branch was actually compiled (round-4 advisor item)
-    from juliagrid_tpu.powerflow import newton_bbd
-    newton_bbd._nr_bbd_solve.clear_cache()
-    traces0 = linalg_mod._seq_lu_traces
-    system2 = jg.power_system(str(data_path / "case118.m"))
-    bbd = newton_raphson_bbd(system2, n_blocks=4)
-    power_flow_bbd(bbd)
-    assert linalg_mod._seq_lu_traces > traces0, \
-        "sequential-LU lax.map branch was not traced"
-    assert bbd.method.converged
-    assert bbd.method.iteration == pf.method.iteration
-    assert np.max(np.abs(bbd.voltage.magnitude
-                         - pf.voltage.magnitude)) < 1e-12
-
-
-@pytest.mark.slow
-def test_synthetic_lattice_bbd_laxmap(monkeypatch):
-    """Lattice + EHV backbone (the 25k generator's exact shape, small),
-    solved on the sequential-LU path, estimator-reproduces-PF asserted."""
-    monkeypatch.setattr(linalg_mod, "_BATCH_LU_VMEM_ROWS", 10)
-    from juliagrid_tpu.powerflow import newton_bbd
-    newton_bbd._nr_bbd_solve.clear_cache()
-    traces0 = linalg_mod._seq_lu_traces
-    system = synthetic_grid(12, 12)
-    pf = newton_raphson_bbd(system, n_blocks=4)
-    power_flow_bbd(pf)
-    assert linalg_mod._seq_lu_traces > traces0
-    assert pf.method.converged
-
-    system2 = synthetic_grid(12, 12)
-    ref = newton_raphson(system2)
-    power_flow(ref)
-    assert np.max(np.abs(pf.voltage.magnitude
-                         - ref.voltage.magnitude)) < 1e-10
+@pytest.mark.parametrize("k,n,m", [(1, 7, 3), (4, 33, 5), (16, 64, 9)])
+def test_batched_lu_solve2_matches_per_block(k, n, m):
+    rng = np.random.default_rng(k * n)
+    a = rng.standard_normal((k, n, n)) + n * np.eye(n)
+    r1 = rng.standard_normal((k, n))
+    r2 = rng.standard_normal((k, n, m))
+    y1, y2 = jax.jit(linalg.batched_lu_solve2)(
+        jnp.asarray(a), jnp.asarray(r1), jnp.asarray(r2))
+    for b in range(k):
+        factors = jsl.lu_factor(jnp.asarray(a[b]))
+        np.testing.assert_allclose(
+            y1[b], jsl.lu_solve(factors, jnp.asarray(r1[b])), atol=1e-12)
+        np.testing.assert_allclose(
+            y2[b], jsl.lu_solve(factors, jnp.asarray(r2[b])), atol=1e-12)

@@ -2,11 +2,12 @@
 (/root/reference/test/utility/utility.jl:34-60): golden-oracle voltage and
 power comparison plus conservation-law checks."""
 
-import h5py
 import numpy as np
 
 
 def h5group(path, group):
+    import h5py
+
     out = {}
     with h5py.File(path, "r") as fh:
         grp = fh[group]
